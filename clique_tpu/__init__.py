@@ -1,17 +1,17 @@
-"""clique_tpu — a TPU-native amplicon / lineage-barcode analysis engine.
+"""clique_tpu — an amplicon / lineage-barcode analysis engine in JAX.
 
 A from-scratch re-design of the capabilities of mckennalab/clique
-(reference: /root/reference) built TPU-first on jax / XLA / Pallas:
+built as batched device work on JAX / XLA, with a CUDA DP fill on GPUs:
 
 - batched affine-gap DP alignment of reads against YAML-templated amplicon
-  references runs as anti-diagonal wavefront kernels on the MXU/VPU
+  references runs as anti-diagonal wavefront kernels
   (``clique_tpu.align``),
 - UMI / static-barcode collapsing is massively-parallel edit-distance
   clustering + consensus in JAX (``clique_tpu.collapse``,
   ``clique_tpu.consensus``),
 - the event caller emits GESTALT-style lineage alleles
   (``clique_tpu.caller``),
-- multi-chip scaling via ``jax.sharding.Mesh`` data-parallel read batches
+- multi-device scaling via ``jax.sharding.Mesh`` data-parallel read batches
   (``clique_tpu.parallel``).
 
 Host-side orchestration (config parsing, FASTQ/SAM/BAM IO, reference

@@ -6,7 +6,7 @@ calculate_score_from_strings :313-331): exact shared segments found by the
 seed index become M runs; the gaps between anchors are aligned with the
 affine DP (optionally inversion-aware); tiny equal-length gaps (<5bp)
 become direct match segments. This shrinks giant DP problems exactly as the
-reference does - the TPU analogue batches the small inter-anchor DPs.
+reference does - the batched analogue batches the small inter-anchor DPs.
 """
 
 from __future__ import annotations

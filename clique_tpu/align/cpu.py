@@ -8,10 +8,10 @@ perform_3d_global_traceback :941-1086, find_max_value_3d_array :868-899,
 clean_and_find_next_best_match_3d :334-362).
 
 It is deliberately written as a plain, obviously-correct python loop: it is
-the oracle the batched JAX / Pallas kernels (align/batch.py,
-align/pallas_kernel.py) are property-tested against, cell for cell and
-traceback step for traceback step. Do not optimize it at the expense of
-clarity.
+the oracle the batched device kernels (align/batch.py, and through its
+bit-identical scan the CUDA fill) are property-tested against, cell for
+cell and traceback step for traceback step. Do not optimize it at the
+expense of clarity.
 
 Semantics pinned here (the quirks are part of the contract):
 - 3 planes: 0 = match/mismatch, 1 = deletion (gap in read, consumes ref),

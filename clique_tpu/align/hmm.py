@@ -78,7 +78,7 @@ def hmm_forward_batch(
         return m + jnp.log(jnp.exp(a - m) + jnp.exp(b - m))
 
     # hoist the per-row ref byte; read bytes come from a rolling window
-    # (per-step gathers are pathologically slow inside TPU scans)
+    # (one-hot selects instead of per-step gathers inside the scan)
     rx_const = jnp.pad(refs_i[:, :n1 - 1], ((0, 0), (1, 0)))
 
     def step(carry, d):

@@ -250,7 +250,7 @@ def inversion_alignment_batch(reference, reads: List[bytes],
                               inv_scoring: InversionScoring,
                               aff_scoring: AffineScoring
                               ) -> List[AlignmentResult]:
-    """Batched inversion-aware alignment (global mode) - the TPU fast path
+    """Batched inversion-aware alignment (global mode) - the device fast path
     for `--find-inversions`-class workloads (VERDICT r1 item 6).
 
     Phase 1 SCREENS the whole batch on device: one batched Waterman-Eggert

@@ -3,7 +3,7 @@
 Semantics mirror /root/reference/rust_cmd/src/alignment/scoring_functions.rs.
 All preset constants are dyadic rationals (k / 2^m); this is load-bearing:
 it makes float32 device arithmetic produce bit-identical max/argmax decisions
-to the float64 host reference, so the TPU kernels can run in f32.
+to the float64 host reference, so the device kernels can run in f32.
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ def main(argv=None) -> int:
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     parser = argparse.ArgumentParser(
         prog="clique-tpu",
-        description="TPU-native amplicon / lineage-barcode analysis engine")
+        description="amplicon / lineage-barcode analysis engine (JAX)")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p_align = sub.add_parser("align", help="align reads to amplicon references")
@@ -184,6 +184,10 @@ def main(argv=None) -> int:
     p_call.add_argument("--min-read-count", type=int, default=1)
 
     args = parser.parse_args(argv)
+
+    from clique_tpu.utils.jaxcfg import enable_persistent_cache
+
+    enable_persistent_cache()
 
     if args.cmd == "align":
         from clique_tpu.align.pipeline import align_reads

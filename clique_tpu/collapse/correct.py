@@ -5,7 +5,7 @@ Re-derivation of the reference's SequenceCorrector closers
 (/root/reference/rust_cmd/src/umis/correct_tags.rs:122-332) with the search
 structures replaced by device distance kernels (collapse/distance.py):
 
-- correct_known_hamming: VP-tree radius search -> MXU one-hot matmul;
+- correct_known_hamming: VP-tree radius search -> int8 one-hot matmul;
   accept iff exactly one allowlist entry within Hamming max_distance
   (known_list.rs:123-167).
 - correct_known_levenshtein: rust_star trie chained search -> pigeonhole

@@ -1074,7 +1074,7 @@ def _collapse_impl(output_path: str, layout: SequenceLayout, input_bam: str,
     n_workers > 1 runs the host-parallel in-RAM path (collapse/workers.py):
     spawned jax-free processes handle BAM decode/ingestion and consensus
     building while this process runs the device correction kernels — the
-    TPU answer to the reference's rayon `--threads` fanout
+    answer here to the reference's rayon `--threads` fanout
     (alignment_functions.rs:90-93). With out_of_core (or caps/big BAMs
     forcing it), workers route through the shard-parallel streaming
     driver (collapse_parallel_spill); only checkpoint falls back to the

@@ -1,9 +1,9 @@
 """Out-of-core sorted shards: the external-memory backbone for collapse.
 
-TPU-first replacement for the reference's shardio dependency
+Replacement for the reference's shardio dependency
 (/root/reference/rust_cmd/src/collapse.rs:468-469: 32-way sharded temp
 files sorted by SortingReadSetContainer::Ord). Collapse currently holds a
-run's reads in RAM; at pod scale (BASELINE config 5) the read records must
+run's reads in RAM; at multi-host scale (BASELINE config 5) the read records must
 spill while only tag counts stay resident. This module provides the spill
 layer:
 

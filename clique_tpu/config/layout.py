@@ -17,7 +17,7 @@ import re
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-import yaml
+from clique_tpu.config import yaml_lite
 
 
 class UMISortType(enum.Enum):
@@ -128,9 +128,8 @@ class SequenceLayout:
     @staticmethod
     def from_yaml_string(text: str) -> "SequenceLayout":
         # serde_yaml encodes enum variants as local tags (`- !Read1 {...}`);
-        # pyyaml needs them registered. We fold the tag into a dict key.
-        loader = yaml.SafeLoader
-        doc = yaml.load(_detag(text), Loader=loader)
+        # we fold the tag into a dict key before loading.
+        doc = yaml_lite.load(_detag(text))
         layout = SequenceLayout._from_dict(doc)
         layout.validate()
         return layout
@@ -274,7 +273,7 @@ def _canon_read_kind(s: str) -> str:
 
 def _detag(text: str) -> str:
     """Convert serde_yaml local tags (`- !Read1\\n  orientation: X`) into
-    single-key mappings pyyaml can parse (`- Read1:\\n    orientation: X`)."""
+    single-key mappings (`- Read1:\\n    orientation: X`)."""
 
     out_lines = []
     for line in text.splitlines():
@@ -286,8 +285,7 @@ def _detag(text: str) -> str:
         if m:
             out_lines.append(f"{m.group(1)}- {m.group(2)}: {m.group(3)}")
             continue
-        # indent continuation lines under a converted tag one extra level is
-        # unnecessary: pyyaml accepts the original indentation because the
-        # mapping value starts on the following line at deeper indent already.
+        # continuation lines keep their indentation: the converted tag's
+        # body follows on deeper-indented lines, or as sibling keys.
         out_lines.append(line)
     return "\n".join(out_lines)

@@ -2,7 +2,7 @@
 
 The reference engine is single-node: its shardio external-memory sort
 (/root/reference/rust_cmd/src/collapse.rs:468-469) is the boundary that
-becomes cross-host communication at pod scale (SURVEY 2.11 P4/P5, BASELINE
+becomes cross-host communication at multi-host scale (SURVEY 2.11 P4/P5, BASELINE
 north star: "UMI groups spanning hosts are merged via all-gather/psum
 collectives before consensus"). This module wires that design end-to-end:
 
@@ -55,8 +55,10 @@ log = logging.getLogger(__name__)
 def init_distributed(coordinator_address: Optional[str],
                      num_processes: int, process_id: int) -> None:
     """jax.distributed.initialize (idempotent): the collectives backbone
-    for multi-host runs. On TPU pods the coordinator/process count come
-    from the environment; for CPU-mesh tests they are passed explicitly."""
+    for multi-process runs. The coordinator address and process count are
+    always passed explicitly. With one process per card, the launcher
+    gives each rank its card through CUDA_VISIBLE_DEVICES, so no rank
+    reserves memory on another's card."""
     import jax
 
     if num_processes <= 1:

@@ -1,13 +1,13 @@
 """Distributed tag group-by: the multi-host collapse backbone.
 
 The reference's shardio external-memory sort (collapse.rs:468-469) is a
-single-node construct; on a pod the same operation becomes (SURVEY 2.11 P4,
+single-node construct; across hosts the same operation becomes (SURVEY 2.11 P4,
 BASELINE north star):
 
 1. each host extracts tags locally and hashes each read's current tag key
    into one of N buckets;
-2. per-bucket histograms are psum-merged across the `data` mesh axis (ICI /
-   DCN collective - `bucket_histogram` below);
+2. per-bucket histograms are psum-merged across the `data` mesh axis (a
+   collective - `bucket_histogram` below);
 3. buckets are deterministically assigned to owner hosts balanced by count
    (`assign_bucket_owners`);
 4. an all-to-all exchange co-locates each bucket's reads on its owner
@@ -70,7 +70,7 @@ def exchange_by_owner(per_host_items: List[List], keys: List[List[bytes]],
                       owner: np.ndarray, n_buckets: int
                       ) -> List[List]:
     """In-process stand-in for the cross-host all-to-all: route every item
-    to its bucket's owner host. On a real pod this is a jax all_to_all /
+    to its bucket's owner host. Across hosts this is a jax all_to_all /
     host-side gRPC shuffle with identical routing."""
     n_hosts = len(per_host_items)
     out: List[List] = [[] for _ in range(n_hosts)]

@@ -1,16 +1,18 @@
-"""Multi-chip scaling: device mesh + data-parallel align step.
+"""Multi-device scaling: device mesh + data-parallel align step.
 
 The reference engine is single-node shared-memory (SURVEY 2.11); its rayon
-read-loop fanout becomes, on TPU, a 1-D `data` mesh over all chips:
+read-loop fanout becomes a flat 1-D `data` mesh over all devices (the
+cards of one host are joined all to all by NVLink, so the mesh follows the
+algorithm alone):
 
-- read batches are sharded over `data` (each chip aligns its shard with the
-  batched DP kernel);
-- the amplicon reference panel is replicated per chip;
-- cross-chip aggregations (per-reference assignment histograms here; per-tag
-  group histograms for the collapse stage) ride ICI via psum.
+- read batches are sharded over `data` (each device aligns its shard with
+  the batched DP kernel);
+- the amplicon reference panel is replicated per device;
+- cross-device aggregations (per-reference assignment histograms here;
+  per-tag group histograms for the collapse stage) are psum collectives.
 
-This module is exercised on a virtual CPU mesh in tests and by the driver's
-dryrun_multichip; the same code runs unchanged on a real pod slice.
+This module is exercised on a virtual CPU mesh in tests and on four GPUs
+by `chip_smoke.py --four-cards` (dryrun_multichip).
 """
 
 from __future__ import annotations
@@ -38,13 +40,12 @@ def make_mesh(n_devices: int = None) -> Mesh:
 def length_sharded_align(mesh: Mesh, refs, reads, ref_lens, read_lens,
                          params, *, n1: int, n2: int):
     """Length-sharding of long DP problems (SURVEY 2.11 P6 / section 5):
-    ONE alignment too big for a chip runs with the DP's reference-lane
+    ONE alignment too big for a device runs with the DP's reference-lane
     axis sharded across the mesh. The anti-diagonal fill's only cross-lane
     communication is the one-lane systolic shift per diagonal
     (align/batch.py `_shift_down` and the read-byte window), which XLA
     SPMD lowers to a halo exchange (CollectivePermute) between
-    neighboring chips - the TPU analogue of splitting one wavefront
-    across cores. Batch axis replicated; results identical to the
+    neighboring devices - splitting one wavefront across devices. Batch axis replicated; results identical to the
     single-device fill."""
     data = NamedSharding(mesh, P(None, "data"))   # shard lanes, not batch
     repl = NamedSharding(mesh, P())
@@ -68,7 +69,7 @@ def sharded_align_step(mesh: Mesh, refs, reads, ref_lens, read_lens, params,
     """One data-parallel align step over the mesh: batches sharded over
     'data', scoring params replicated. Returns (scores [B], ops [B,T],
     n_ops [B]) with the batch axis still sharded. The collapse stage's
-    cross-chip aggregation (per-tag bucket histograms) runs as a separate
+    cross-device aggregation (per-tag bucket histograms) runs as a separate
     collective over the same mesh - parallel/groupby.bucket_histogram."""
     data = NamedSharding(mesh, P("data"))
     repl = NamedSharding(mesh, P())

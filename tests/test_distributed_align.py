@@ -56,6 +56,9 @@ def test_align_distributed_single_process(tmp_path):
     assert record_multiset(out) == record_multiset(aligned)
 
 
+# worker processes import clique_tpu from the repo root (not installed)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 _WORKER = textwrap.dedent("""
     import sys
     (layout_path, fq, work, out_bam, cwork, cout,
@@ -195,7 +198,7 @@ def test_distributed_chain_two_processes(tmp_path):
         port = s.getsockname()[1]
 
     env = dict(os.environ)
-    env["PYTHONPATH"] = ""
+    env["PYTHONPATH"] = ROOT
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
     # small stripe chunks so 30 reads actually split across ranks

@@ -27,6 +27,10 @@ A3 = "AGATCGGAAGAGCACACGTCTGAA"
 TARGET = "GGCACTGCGGCTGGAGGTGG"
 
 
+# worker processes import clique_tpu from the repo root (not installed)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
 def rand_seq(n):
     return RNG.choice(BASES, size=n).tobytes().decode()
 
@@ -130,7 +134,7 @@ def test_distributed_collapse_two_processes(tmp_path):
         port = s.getsockname()[1]
 
     env = dict(os.environ)
-    env["PYTHONPATH"] = ""
+    env["PYTHONPATH"] = ROOT
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
     procs = [

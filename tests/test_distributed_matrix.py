@@ -23,6 +23,9 @@ from clique_tpu.reference.manager import ReferenceManager
 
 from tests.test_distributed_collapse import record_multiset
 
+# worker processes import clique_tpu from the repo root (not installed)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 RNG = np.random.default_rng(777)
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -134,7 +137,7 @@ def _run_world(tmp_path, layout_path, aligned, out_bam, nproc, *,
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     env = dict(os.environ)
-    env["PYTHONPATH"] = ""
+    env["PYTHONPATH"] = ROOT
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
     env["CLIQUE_TPU_CQI_EVERY"] = cqi_every

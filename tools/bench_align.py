@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""Align-only throughput driver (A/B harness for fill-kernel variants).
+"""Align-only throughput driver.
 
 Same dataset shape as bench.py (600bp 10-target amplicon, 5% subs) but
-align_reads only; prints reads/s. Honors CLIQUE_TPU_PALLAS=1.
+align_reads only; prints reads/s (tools/ab_fill.py compares the fills).
 
-    timeout 580 python tools/bench_align.py [n_reads]
+    python tools/bench_align.py [n_reads]
 """
 
 import os
@@ -87,8 +87,7 @@ references:
         with open(os.path.join(tmp, "m.json")) as fh:
             import json
             m = json.load(fh)
-    pallas = os.environ.get("CLIQUE_TPU_PALLAS", "0")
-    print(f"pallas={pallas} aligned={stats.aligned} {dt:.2f}s "
+    print(f"aligned={stats.aligned} {dt:.2f}s "
           f"{stats.aligned / dt:.0f} reads/s  device={m['device_seconds']:.2f}s "
           f"host_post={m['host_post_seconds']:.2f}s "
           f"dp={m['dp_cells_per_s'] / 1e9:.1f} Gcells/s")

@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""Kernel microbenchmarks (manual; run with the TPU otherwise idle):
+"""Kernel microbenchmarks (manual; one process on an otherwise idle GPU):
 
-    python tools/bench_kernels.py [dp|pallas|wfa|hamming]
+    python tools/bench_kernels.py [dp|cuda|wfa|hamming]
 
-Reports DP fill+traceback cells/s, the Pallas fused-fill cells/s, WFA
-cells/s (equivalent n*m cells per alignment at 5% error), and allowlist
-Hamming lookups/s on the MXU.
+Reports DP fill+traceback cells/s, the CUDA fill's cells/s (GPU only),
+WFA cells/s (equivalent n*m cells per alignment at 5% error), and
+allowlist Hamming lookups/s as an int8 one-hot product.
 """
 
 import sys
@@ -50,29 +50,28 @@ def bench_dp():
           f"{cells/dt/1e9:.1f} Gcells/s  {B/dt:.0f} alignments/s")
 
 
-def bench_pallas():
-    from clique_tpu.align.pallas_kernel import pallas_fill
+def bench_cuda_fill():
     from clique_tpu.align.batch import scoring_to_params
+    from clique_tpu.align.cuda_fill import cuda_fill
     from clique_tpu.align.scoring import AffineScoring
 
     rng = np.random.default_rng(0)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     B, LR, LD = 256, 511, 639
     n1, n2 = 512, 640
-    refs = np.zeros((B, n1), dtype=np.uint8)
-    refs[:, 1:LR + 1] = rng.choice(bases, (B, LR))
-    reads = np.zeros((B, n2 - 1), dtype=np.uint8)
-    reads[:, :LD] = rng.choice(bases, (B, LD))
+    refs = rng.choice(bases, (B, LR)).astype(np.uint8)
+    reads = rng.choice(bases, (B, LD)).astype(np.uint8)
+    rl = np.full(B, LR, np.int32)
+    dl = np.full(B, LD, np.int32)
     params = scoring_to_params(AffineScoring.aligner_default())
 
     def run():
-        tb, corner = pallas_fill(refs, reads, LR, LD, params, n1=n1, n2=n2)
+        words, corner = cuda_fill(refs, reads, rl, dl, params, n1=n1, n2=n2)
         return corner
 
     dt, _ = _bench(run)
     cells = B * LR * LD
-    print(f"pallas fused fill: {dt*1000:.1f} ms/batch  "
-          f"{cells/dt/1e9:.1f} Gcells/s")
+    print(f"CUDA fill: {dt*1000:.1f} ms/batch  {cells/dt/1e9:.1f} Gcells/s")
 
 
 def bench_wfa():
@@ -118,8 +117,8 @@ if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which in ("dp", "all"):
         bench_dp()
-    if which in ("pallas", "all"):
-        bench_pallas()
+    if which in ("cuda", "all"):
+        bench_cuda_fill()
     if which in ("wfa", "all"):
         bench_wfa()
     if which in ("hamming", "all"):

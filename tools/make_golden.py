@@ -7,7 +7,7 @@ consensus, or BAM encoding fails the test (BASELINE "bit-for-bit" clause,
 VERDICT r2 item 8). Re-run this script ONLY when an intentional behavior
 change invalidates the pin, and say so in the commit message:
 
-    env PYTHONPATH= JAX_PLATFORMS=cpu python tools/make_golden.py
+    JAX_PLATFORMS=cpu python tools/make_golden.py
 
 Dataset: one GESTALT-style amplicon, a 2-level hierarchy (cell_id
 KnownTag against a frozen 8-barcode allowlist + umi DegenerateTag), 48

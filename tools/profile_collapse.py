@@ -5,7 +5,7 @@ collapse under cProfile on the CPU backend. The device distance calls run
 on CPU jax here, so treat device time as noise and read the HOST lines.
 
 Usage: ./run_tests.sh is NOT needed; run with
-  env PYTHONPATH= JAX_PLATFORMS=cpu python tools/profile_collapse.py [--ooc]
+  JAX_PLATFORMS=cpu python tools/profile_collapse.py [--ooc]
 """
 
 import cProfile
